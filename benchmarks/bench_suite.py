@@ -449,7 +449,7 @@ def _observable_recovery(b, theta_best):
 
 
 def precision_delta(rng):
-    """f32-on-TPU vs f64-on-CPU: objective deltas at identical thetas and
+    """f32-on-device vs f64-on-CPU: objective deltas at identical thetas and
     fitted-parameter deltas from identical-seed fits (VERDICT r1 weak #5)."""
     import json as _json
     import os
@@ -525,7 +525,7 @@ def precision_delta(rng):
     rel64 = _recovery_errors(b, best64)
     param_delta = float(np.median(np.abs(best32 - best64)
                                   / np.maximum(np.abs(best64), 1e-9)))
-    section("6_precision_f32tpu_vs_f64cpu", obj_delta,
+    section("6_precision_f32dev_vs_f64cpu", obj_delta,
             "max rel objective delta at identical thetas (pop=64, N=40)",
             {"fitted_param_median_rel_delta": round(param_delta, 4),
              "recovery_median_f32": round(float(np.median(rel32)), 4),

@@ -1,12 +1,7 @@
-"""Slope-timed per-mechanism objective throughput (models 2 and 4).
+"""Per-mechanism objective throughput (models 2 and 4) on a GPU.
 
-Round-5 honest protocol (see bench.py module docstring): chain K
-data-dependent objective calls inside one jit, force a scalar host fetch,
-report the slope between two K arms. The round-4 model-2 figure (10.6k
-evals/s) was recorded with the broken ``block_until_ready`` barrier; this
-script re-records it honestly, after the round-5 mechanism-generic scan
-work (pages phi kernel where applicable, run-structured segment scan,
-lane-native synthesis).
+Same timing as bench.py: warmed calls ended by ``jax.block_until_ready``,
+median of several. Device figures: not measured on the H100 yet.
 
 Usage: python benchmarks/model_rates.py [--pop 2048]
 Reference anchor: the mechanisms' hot loops this replaces,
@@ -28,7 +23,7 @@ def rate_for_model(model, pop, pop_chunk=2048):
     import jax
     import jax.numpy as jnp
 
-    from bench import _slope_time
+    from bench import device_record, time_call
     from phoskintime_tpu.demo import build_demo_network
     from phoskintime_tpu.network.objective import make_population_objective
 
@@ -46,14 +41,10 @@ def rate_for_model(model, pop, pop_chunk=2048):
     jax.block_until_ready(F)
     assert bool(jnp.all(jnp.isfinite(F)))
 
-    def obj_scalar(t, eps):
-        return objective(t + eps)[0, 0]
-
-    t_call, t_single = _slope_time(obj_scalar, thetas, Ks=(1, 4))
-    return {"model": model, "pop": pop,
+    t_call = time_call(f, thetas)
+    return {"model": model, "pop": pop, "device": device_record(),
             "evals_per_s": round(pop / t_call, 1),
-            "ms_per_call": round(t_call * 1e3, 2),
-            "dispatch_ms": round((t_single - t_call) * 1e3, 1)}
+            "ms_per_call": round(t_call * 1e3, 3)}
 
 
 def main():
@@ -61,11 +52,9 @@ def main():
     ap.add_argument("--pop", type=int, default=2048)
     ap.add_argument("--models", type=int, nargs="+", default=[2, 4])
     args = ap.parse_args()
-    try:
-        from phoskintime_tpu.parallel.profile import enable_compilation_cache
-        enable_compilation_cache()
-    except Exception:
-        pass
+    from phoskintime_tpu.parallel.profile import enable_compilation_cache
+
+    enable_compilation_cache()
     for m in args.models:
         t0 = time.time()
         out = rate_for_model(m, args.pop)

@@ -7,7 +7,7 @@ CURRENT model state (kinase→site phospho flux, TF→target synthesis
 drive), seed-based cascade propagation to a depth, and temporal sweeps
 of the edge tables (the app's gravis/plotly time animation).
 
-TPU-native design: ONE exponential simulation yields the state at every
+Accelerator-native design: ONE exponential simulation yields the state at every
 sweep time; the edge tensors for all times come from dense masked
 einsums over the padded topology — the reference re-simulates and loops
 proteins per snapshot. The sweep is exported as a tidy CSV plus a

@@ -6,7 +6,7 @@ signaling), kinetic lag (protein->RNA cross-correlation), transcriptional
 saturation (digital switching), and feedback gain (TF -> kinase -> TF
 revolving-door loops).
 
-TPU-native: one high-resolution simulation feeds every insight; the
+Accelerator-native: one high-resolution simulation feeds every insight; the
 per-protein python loops of the reference collapse into vectorized numpy
 (cross-correlations via one batched FFT instead of scipy.signal.correlate
 per protein).

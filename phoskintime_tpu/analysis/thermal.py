@@ -12,7 +12,7 @@ a substrate: ``S * P_active`` with ``P_active = P * f``), and
 (2) inflates degradation: ``D -> D * (1 + k_unfold * (1 - f))`` and the
 same for every site's Dp (unfolded protein is cleared faster).
 
-TPU-native: the temperature enters only through STATE-INDEPENDENT scale
+Accelerator-native: the temperature enters only through STATE-INDEPENDENT scale
 factors, so the variant is a pure (topology, params) transform — the
 reference's three separate thermal Numba kernels collapse into
 :func:`thermalize` + the existing integrators (including the exponential

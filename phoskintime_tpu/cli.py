@@ -32,7 +32,7 @@ def _add_common(p):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="phoskintime_tpu",
-        description="TPU-native ODE parameter estimation of cell-signalling "
+        description="GPU-accelerated ODE parameter estimation of cell-signalling "
                     "events in temporal space")
     sub = ap.add_subparsers(dest="command", required=True)
 
@@ -418,8 +418,10 @@ def cmd_clean(args):
                 shutil.rmtree(os.path.join(root, d), ignore_errors=True)
                 dirs.remove(d)
                 n += 1
-    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR")
-    if cache and os.path.isdir(cache):
+    from phoskintime_tpu.parallel.profile import compilation_cache_dir
+
+    cache = compilation_cache_dir()
+    if os.path.isdir(cache):
         shutil.rmtree(cache, ignore_errors=True)
         logger.info(f"[clean] removed XLA cache {cache}")
     logger.info(f"[clean] removed {n} __pycache__ dirs")
@@ -427,15 +429,11 @@ def cmd_clean(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    # persistent XLA compile cache for every stage: first traces cost
-    # 10-50 s (kinopt local ~50 s, global fit ~13 s); repeat runs with
+    # persistent XLA compile cache for every stage: repeat runs with
     # unchanged shapes skip compilation entirely
-    try:
-        from phoskintime_tpu.parallel.profile import enable_compilation_cache
+    from phoskintime_tpu.parallel.profile import enable_compilation_cache
 
-        enable_compilation_cache()
-    except Exception:
-        pass
+    enable_compilation_cache()
     cmd = args.command.replace("-", "_")
     {"prep": cmd_prep, "tfopt": cmd_tfopt, "kinopt": cmd_kinopt,
      "model": cmd_model, "global_model": cmd_global_model,

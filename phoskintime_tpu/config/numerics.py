@@ -1,14 +1,18 @@
 """Numeric policy for the framework.
 
-TPUs natively compute in f32/bf16; f64 is software-emulated and slow. The
-reference stack is float64 SciPy. We therefore make the working dtype a
+The reference stack is float64 SciPy. An H100 computes f64 natively, at
+67 TFLOP/s against 67 TFLOP/s of non-tensor-core f32 (NVIDIA data sheet,
+SXM) — but f32 halves the bytes every lane moves, and the batched
+integrators are bandwidth-bound. We therefore make the working dtype a
 policy:
 
 * On CPU (tests, parity checks) enable x64 and run float64 — this is how we
   match the reference to 1e-6 rtol.
-* On TPU default to float32 (the integrators use compensated summation and
-  PI step-size control, so 1e-5/1e-7 optimization tolerances are attainable),
-  with an opt-in to x64 when bit-accuracy matters more than speed.
+* On the GPU default to float32 (the integrators use compensated summation
+  and PI step-size control, so 1e-5/1e-7 optimization tolerances are
+  attainable), with an opt-in to x64 when bit-accuracy matters more than
+  speed. The GPU's native f64 is also the on-card reference that
+  ``chip_smoke.py`` compares the f32 path against.
 
 Use :func:`working_dtype` everywhere instead of hard-coding a dtype.
 """
@@ -43,7 +47,7 @@ def working_dtype() -> jnp.dtype:
     """The framework-wide float dtype.
 
     float64 when x64 is enabled (CPU parity mode), float32 otherwise
-    (TPU production mode). Overridable via PHOSKINTIME_DTYPE.
+    (GPU production mode). Overridable via PHOSKINTIME_DTYPE.
     """
     if _FORCE == "float64":
         # without x64 enabled, jnp silently downcasts float64 arrays to

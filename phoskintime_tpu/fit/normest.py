@@ -13,7 +13,7 @@ Spec: reference ``paramest/normest.py:22-563`` — for each gene:
 5. optional bootstrap (multiplicative 5% Gaussian noise on the target);
 6. Wald confidence intervals.
 
-TPU-native architecture: steps 1+2 are each ONE vmapped Levenberg-Marquardt
+Accelerator-native architecture: steps 1+2 are each ONE vmapped Levenberg-Marquardt
 batch — the (lambda x weight) grid and the multistart cloud are batch axes,
 not processes. The per-gene reproducible seeding (seed + gene hash,
 reference normest.py:226-228) is preserved.

@@ -6,7 +6,7 @@ mechanism diagram -> PCA/t-SNE/parallel/fit plots -> wild-type vs all
 knockout combinations -> parameter/CI exports -> optional Morris
 sensitivity; then cohort-level result tables and the HTML report.
 
-TPU-native notes: each stage is already device-batched internally
+Accelerator-native notes: each stage is already device-batched internally
 (normest over starts x weights x lambdas, knockouts and Morris as batch
 axes); genes run in sequence host-side but all device work per gene is a
 handful of jitted batched programs.

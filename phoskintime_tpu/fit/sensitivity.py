@@ -6,7 +6,7 @@ reference fans out to a ProcessPoolExecutor over all cores), scalar Y
 metric, Morris analyze at conf_level=0.99 (scaled), and the top-K
 closest-RMSE trajectories kept for perturbation-cloud plots.
 
-TPU-native: the full (r*(d+1)) design solves as ONE vmapped exact-LTI
+Accelerator-native: the full (r*(d+1)) design solves as ONE vmapped exact-LTI
 batch; Y metrics and RMSE ranking are vectorized.
 """
 

@@ -10,8 +10,8 @@ with per-site ``sum_j alpha_{i,j} = 1`` and per-kinase
 base(MSE)/autocorrelation(lag-1 r^2)/huber/mape with optional L1+L2
 regularization.
 
-TPU-native layout: ragged alpha/beta groups become padded index matrices
-with masks; the two-stage accumulation is two masked einsums (MXU matmuls),
+Accelerator-native layout: ragged alpha/beta groups become padded index matrices
+with masks; the two-stage accumulation is two masked einsums (dense matmuls),
 and a multistart population is one extra vmap axis.
 """
 

@@ -6,7 +6,7 @@ joblib multistart, jitter/uniform sampling, feasibility-first sort) and
 ``kinopt/evol/opt/optrun.py`` (DE 10k gens / NSGA-II 2k gens with +/-eps
 constraint pairs).
 
-TPU-native: the local path runs all starts as one vmapped projected-Adam
+Accelerator-native: the local path runs all starts as one vmapped projected-Adam
 program with exact simplex-box projection (feasible by construction); the
 evolutionary path reuses :mod:`phoskintime_tpu.ops.nsga` with batched
 device evaluation.

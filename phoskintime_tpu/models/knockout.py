@@ -4,7 +4,7 @@ Spec: reference ``knockout/helper.py:5-62`` — knockouts are parameter-vector
 zeroings (transcription A=0, translation C=0, phosphorylation all-or-per-site
 S_i=0) over the full cartesian product of options.
 
-TPU-native twist: instead of looping solve_ode per combination, knockouts
+Accelerator-native twist: instead of looping solve_ode per combination, knockouts
 are expressed as a (n_combos, n_params) multiplier-mask matrix; the whole
 knockout scan is a single extra batch axis on the vmapped exact solve.
 """

@@ -4,7 +4,7 @@ Behavioral spec: the model-2 hypercube RHS of reference
 ``global_model/models.py:322-432`` (per-site phospho/dephospho edges over
 the 2^s mask lattice, per-set-bit decay, translation into mask 0).
 
-TPU-native design — the round-5 answer to the model-2 propagator cost.
+An answer to the model-2 propagator cost.
 For per-site independent rates the 2^s-state linear operator is (almost)
 a Kronecker sum:
 
@@ -32,7 +32,7 @@ correction stage's RK2-style stability bound |h·D| ≲ 2.  The production
 segment plan runs h up to 16 with D ~ O(1): measured divergence to
 1e122 at substep 4 (h·D = 5.2), exact parity with the dense path at
 substep ≤ 0.5 (tests/test_kron.py pins both).  The alternatives all
-fail too, each for a provable reason (benchmarks/RESULTS_r5.md §model-2):
+fail too, each for a provable reason:
 
 * **exact factorization is impossible** — in the site basis, K is a
   Kronecker sum iff its two bit-j half-blocks differ by a scalar shift
@@ -49,17 +49,17 @@ fail too, each for a provable reason (benchmarks/RESULTS_r5.md §model-2):
 
 The module stays: the factor algebra is exact and independently tested,
 the small-h regime works, and the code is the proof artifact the
-round-4 verdict asked for.  What the factorization WOULD buy on TPU if
-the splitting were stable:
+round-4 verdict asked for.  What the factorization WOULD buy if the
+splitting were stable:
 
 * **exact closed-form factors** — exp(h·A_j) is an analytic 2×2
   exponential (elementwise lane math), replacing the O(w³·ladder)
   scaling+Taylor+squaring matrix build per (bucket, h, lane);
 * **tiny tables** — per pair the scan reads s·4 + 2·2^s + 3 lane planes
   (~51·PN bytes at s=4) instead of w² + 2w (~323·PN): an ~6× cut in the
-  HBM table traffic that bounds the segment scan;
+  device-memory table traffic of the segment scan;
 * **factorized applies** — E·y is s axis-wise 2×2 contractions over the
-  (2,)*s-reshaped state, pure VPU lane FMAs, no w×w matvec;
+  (2,)*s-reshaped state, pure elementwise lane FMAs, no w×w matvec;
 * the φ₁/φ₂ VECTORS the remainder needs (columns at e₀) are built with
   the same scaling + Taylor + doubling ladder as the dense path
   (:func:`expo._phi_vectors_lanes`), but every matrix op in it collapses
@@ -285,8 +285,7 @@ def kron_simulate_batched(system, params_b, y0b, plan, dtype):
     tables hoisted static per run, outputs materialized only at run ends).
     Returns (ys (P, T, N·w), success (P,)).
     """
-    from phoskintime_tpu.network.expo import _run_plan
-    from phoskintime_tpu.ops.phi_pallas import ladder_len
+    from phoskintime_tpu.network.expo import _run_plan, ladder_len
 
     (seg_t0, seg_h, seg_jb, out_idx, seg_uidx, u_jb, u_h) = plan
     rhs = system.rhs

@@ -5,7 +5,7 @@ Spec: reference ``global_model/lossfn.py:113-386`` (gather-based robust
 weight-sum normalization, relative prior-adherence penalty added to all
 objectives, fail_value on solver failure).
 
-TPU-native: one candidate evaluation = unpack softplus params -> RK45
+Accelerator-native: one candidate evaluation = unpack softplus params -> RK45
 simulate -> gathers + robust loss. A whole population is ``vmap`` over the
 raw-theta axis — the reference's 300-process pool becomes one XLA program,
 shardable over a device mesh.
@@ -108,10 +108,9 @@ def _dense_loss_tensors(loss_data, T: int, N: int, Smax: int):
     kernel finite there).
 
     The reference's gather-based "fast loss data" (``global_model/
-    cache.py:19-155``) is the CPU-native design; on TPU the batched
-    gathers it induces ran at ~5 ms per pop-2048 objective call
-    (round-4 decomposition profile) because TPU gathers serialize.
-    Dense masked tensors make the whole loss elementwise. Returns None
+    cache.py:19-155``) is the CPU-native design; batched over a
+    population it becomes one gather per observation per member. Dense
+    masked tensors make the whole loss elementwise. Returns None
     when any (t, p[, s]) key is duplicated (replicate observations) —
     callers then keep the gather path, whose sums handle duplicates.
     """
@@ -146,10 +145,9 @@ def _auto_pop_chunk(n_proteins: int, lanes_target: int = 81920) -> int:
 
     The batched integrator's working set — propagator tables
     (U, w, w, P*N) plus the scanned state — scales with the LANE count,
-    so the HBM-resident sweet spot is a lane budget, not a member count.
-    Measured on the v5e (round 4): N=40 peaks at chunk 2048 (82k lanes,
-    65.1k evals/s vs 57.4k unchunked at pop 8192); N=150 is flat within
-    noise over chunks 512-1000 and collapses 19x unchunked at pop 10k."""
+    so the memory-resident sweet spot is a lane budget, not a member
+    count. The ~80k-lane budget is untuned for the H100: it is kept from
+    an earlier accelerator until a measured sweep replaces it."""
     import math
 
     return min(8192, max(256, 2 ** round(
@@ -160,25 +158,21 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
                               time_grid, loss_mode=0, fail_value=1e12,
                               y0=None, substep=16.0, use_pallas=None,
                               differentiable=False, pop_chunk="auto",
-                              width_bucketing=None, use_scan_kernel=None):
+                              width_bucketing=None):
     """Natively-batched objective: thetas (P, n) -> F (P, 3), using the
     exponential (ETD2RK) integrator's flat-batch fast path.
 
-    ~8x faster per evaluation than vmapping the RK45 objective on TPU
-    (fixed segment count, no while_loop lane divergence, propagators as one
-    lane-parallel expm). ``use_pallas=False`` keeps the propagator build
+    Fixed segment count, no while_loop lane divergence, propagators as one
+    lane-parallel expm. ``use_pallas=False`` keeps the propagator build
     pure-XLA so the returned objective is differentiable (jax.grad) —
     the gradient polish stage requires it.
 
     ``pop_chunk``: populations larger than this run as a ``lax.map`` over
     equal chunks (tail padded with the last row, results sliced away).
     The propagator tables are (U, w, w, P*N), so the scan's working set
-    scales with the LANE count P*N, not P — past the v5e's HBM bandwidth
-    window throughput collapses (measured r4: N=150 pop 10k unchunked
-    1.2k evals/s vs 23k at chunk 1000; N=40 pop 8192 57.4k unchunked vs
-    65.1k at chunk 2048). ``"auto"`` (default) sizes the chunk to hold
-    ~80k lanes: the measured peak at both N=40 (chunk 2048) and N=150
-    (chunks 512-1000 within noise). None disables chunking.
+    scales with the LANE count P*N, not P. ``"auto"`` (default) sizes the
+    chunk to hold ~80k lanes (:func:`_auto_pop_chunk`, untuned for the
+    H100). None disables chunking.
 
     ``width_bucketing`` forwards to
     :func:`~phoskintime_tpu.network.expo.exponential_simulate_batched`
@@ -215,8 +209,7 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
         ys, success = exponential_simulate_batched(
             system, params_b, t_eval, substep=substep, y0=y0,
             use_pallas=use_pallas, differentiable=differentiable,
-            width_bucketing=width_bucketing,
-            use_scan_kernel=use_scan_kernel)
+            width_bucketing=width_bucketing)
 
         ld = loss_data
 
@@ -250,7 +243,7 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
         P = thetas.shape[0]
         if pop_chunk is not None and P > pop_chunk:
             # pad (edge rows — valid thetas, results sliced away) so a
-            # non-multiple population still chunks instead of spilling HBM
+            # non-multiple population still chunks instead of spilling
             pad = (-P) % pop_chunk
             if pad:
                 thetas = jnp.concatenate(
@@ -292,9 +285,11 @@ def evaluate_population(objective, thetas, mesh=None):
               else jax.vmap(objective))
         if mesh is not None:
             from jax.sharding import NamedSharding, PartitionSpec as P
+
+            from phoskintime_tpu.parallel.mesh import sharded_jit
+
             sh = NamedSharding(mesh, P("pop", None))
-            f = jax.jit(vf, in_shardings=sh,
-                        out_shardings=NamedSharding(mesh, P("pop", None)))
+            f = sharded_jit(vf, mesh, in_shardings=sh, out_shardings=sh)
         else:
             f = jax.jit(vf)
         per_obj[id(mesh)] = (mesh, f)

@@ -6,7 +6,7 @@ Optuna MOTPE (n_trials, pruning on crash), optional iterative bound-zoom
 refinement (``refine.py:32-357``), and Frechet-distance solution picking
 per modality (``runner.py:775-858``).
 
-TPU-native: the evaluate callable wraps the vmapped objective (optionally
+Accelerator-native: the evaluate callable wraps the vmapped objective (optionally
 sharded over a device Mesh); GA bookkeeping is host-side.
 """
 
@@ -189,8 +189,8 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     else:
         # fused on-device variation+evaluation (one XLA call per
         # generation; host keeps survival only) whenever the objective is
-        # population-native — the host GA pipeline was 38 ms/gen at the
-        # north-star shape vs 24 ms device compute (RESULTS_r2.md)
+        # population-native — on the earlier accelerator the host GA
+        # pipeline cost more per generation than the device compute
         if getattr(objective, "_is_population", False) \
                 and gens_per_dispatch > 1:
             from phoskintime_tpu.ops.nsga_device import (

@@ -1,6 +1,6 @@
 """Gradient polish of global-fit solutions (exact reverse-mode descent).
 
-The single biggest TPU-native advantage over the reference: the ENTIRE
+The single biggest accelerator-native advantage over the reference: the ENTIRE
 objective — softplus unpack -> bucketed ETD2RK network integration ->
 robust 3-modality loss + prior penalty — is differentiable end-to-end, so
 candidate solutions can be sharpened with exact gradients. The reference's
@@ -21,7 +21,7 @@ Design:
   (``lax.scan`` over steps; each step = forward + reverse sweep of the
   full network integration), vmapped/batched over the member axis exactly
   like the GA's population evaluation;
-* the propagator-table build runs the statically-unrolled XLA ladder
+* the propagator-table build runs the static-length masked XLA ladder
   (``differentiable=True``) — the Pallas table kernel has no VJP.
 """
 
@@ -153,7 +153,8 @@ def polish_solutions(system, slices, loss_data, defaults, lambdas, time_grid,
         bX, _ = polish_jit(jnp.asarray(Xc), jnp.asarray(Wc))
         out_X[c0:c1] = np.asarray(bX)[: c1 - c0]
 
-    # final objectives through the PRODUCTION objective (Pallas path ok)
+    # final objectives through the PRODUCTION objective (unsharded: the
+    # table kernel's route is open to it)
     prod_obj = make_population_objective(
         system, slices, loss_data, defaults, lambdas, time_grid,
         loss_mode=loss_mode, y0=y0)
@@ -173,7 +174,7 @@ def gradient_multistart(system, slices, loss_data, defaults, lambdas,
     direction as its scalarization, and runs the bounded-Adam polish.
     Returns (X (pop, n), F (pop, 3)) — feed to non-dominated sorting for a
     Pareto set. This mode has no reference counterpart (the reference
-    cannot differentiate through LSODA); it exists because the TPU rebuild
+    cannot differentiate through LSODA); it exists because this rebuild
     can.
     """
     from phoskintime_tpu.ops.nsga import das_dennis, lhs_sampling
@@ -196,8 +197,7 @@ def lm_refine_mixed(system, slices, loss_data, defaults, lambdas, time_grid,
                     logger=None, **kw):
     """Mixed-precision LM finish: working-dtype LM to its rounding floor,
     then a float64-system finish from the converged point — ON THE SAME
-    BACKEND (f64 runs on this TPU platform; compile is slow, execution
-    viable).
+    BACKEND (the GPU computes f64 natively).
 
     Why: the f32 forward pass floors the attainable parameter match at
     ~5e-5 relative (measured, N=150 — the residual and Jacobian entries

@@ -5,12 +5,12 @@ distributive 0, sequential 1, combinatorial 2, saturating 4 — plus the
 rational soft-clipped synthesis rate) and ``global_model/jacspeedup.py``
 (CSR matvecs, step-interpolated kinase input, driver overrides).
 
-TPU-native design: the per-protein Numba loops become dense masked array
-ops over the padded (N, width) state:
+Accelerator-native design: the per-protein Numba loops become dense masked
+array ops over the padded (N, width) state:
 
 * ``S = einsum('nsk,k->ns', W_pad, Kt)`` replaces the CSR W matvec (these
-  networks are small enough that a dense matmul on the MXU beats sparse
-  gathers by a wide margin);
+  networks are small enough that a dense matmul beats sparse gathers by a
+  wide margin);
 * the TF coupling is one (N, N) matvec;
 * the combinatorial hypercube runs as gathers along a static XOR index
   table + masked einsums over (N, Smax, Mmax) — all 2^n transitions of all
@@ -51,7 +51,7 @@ def tf_inputs(tf_mat, tf_deg, P_vec):
 def _linear_block_tables(model: int, w: int):
     """Constant one-hot (slot, w, w) placement tables for the analytic
     linear blocks: the per-protein coefficient vectors contract against
-    these with ONE (N, slots) @ (slots, w*w) matmul — no TPU scatters."""
+    these with ONE (N, slots) @ (slots, w*w) matmul — no scatters."""
     smax = w - 2
     scalars = np.zeros((5, w, w))        # [-B, C, P0-diag, E->P0 unused, ...]
     scalars[0, 0, 0] = 1.0               # dR/dR coefficient slot
@@ -125,7 +125,8 @@ class PaddedRHS:
 
     def site_rates(self, Kt):
         """S (N, Smax): per-site phospho drive = W . Kt."""
-        return jnp.einsum("nsk,k->ns", self.W_pad, Kt)
+        return jnp.einsum("nsk,k->ns", self.W_pad, Kt,
+                          precision=jax.lax.Precision.HIGHEST)
 
     def total_protein(self, Y):
         if self.model == 2:
@@ -226,9 +227,10 @@ class PaddedRHS:
         t_sc, t_1s, t_s1, t_diag, t_sub, t_sup = (
             jnp.asarray(t, dt_) for t in _linear_block_tables(self.model, w))
 
-        # NOTE: placement contractions pinned to HIGHEST precision — the
-        # TPU default feeds matmuls bf16 inputs, which corrupts the linear
-        # operators (hence the propagators) at ~1e-3 relative.
+        # NOTE: placement contractions pinned to HIGHEST precision — a
+        # reduced-precision default (bf16 passes, or TF32 on a GPU)
+        # corrupts the linear operators (hence the propagators) at ~1e-3
+        # relative.
         dot = lambda a, t: jnp.dot(a, t, precision=jax.lax.Precision.HIGHEST)
         if self.model == 0:
             # dP0 = C R - (D + sum S) P0 + E sum(sites)
@@ -353,7 +355,8 @@ class PaddedRHS:
         dX = jnp.sum((inflow - outflow) * valid, axis=1)
 
         # per-set-bit decay (Dp_j + D per bit); mask 0 decays at plain D
-        decay_rate = jnp.einsum("nj,jm->nm", (Dp + D[:, None]) * smask, bits)
+        decay_rate = jnp.einsum("nj,jm->nm", (Dp + D[:, None]) * smask, bits,
+                                precision=jax.lax.Precision.HIGHEST)
         decay_rate = decay_rate.at[:, 0].set(D)
         dX = dX - decay_rate * X
         dX = dX.at[:, 0].add(C * R)                 # translation into mask 0

@@ -46,19 +46,31 @@ from phoskintime_tpu.network.weights import build_weight_functions
 
 logger = setup_logger()
 
+# the report layer's optional packages: without them figures are skipped
+_FIGURE_PACKAGES = ("matplotlib", "sklearn")
+
+
+def _figure(writer, *args, **kwargs):
+    """Run one figure writer. matplotlib and scikit-learn are optional
+    dependencies of the report layer: where one is missing the figure is
+    skipped and logged, and the numeric exports are unaffected."""
+    try:
+        return writer(*args, **kwargs)
+    except ModuleNotFoundError as e:
+        if e.name not in _FIGURE_PACKAGES:
+            raise
+        logger.warning(f"[Report] {writer.__name__} skipped: {e.name} is "
+                       f"not installed")
+
 
 def main(cfg: PhosKinConfig, mesh=None, out_dir=None,
          weighting=None) -> dict:
     """Run the full global fit from a config; returns the result bundle."""
-    # persistent XLA compile cache: the fit's first trace costs ~13 s at
-    # reference scale (incl. the 14 Pallas table kernels) — repeat runs
-    # with the same shapes skip it entirely
-    try:
-        from phoskintime_tpu.parallel.profile import enable_compilation_cache
+    # persistent XLA compile cache: repeat runs with the same shapes skip
+    # the fit's first trace and compile
+    from phoskintime_tpu.parallel.profile import enable_compilation_cache
 
-        enable_compilation_cache()
-    except Exception:
-        pass
+    enable_compilation_cache()
     if weighting is None:
         weighting = (cfg.weighting_method_protein, cfg.weighting_method_rna,
                      cfg.weighting_method_phospho)
@@ -171,10 +183,11 @@ def main(cfg: PhosKinConfig, mesh=None, out_dir=None,
                                res.pareto_X, slices, topo)
     from phoskintime_tpu.io.export import export_param_correlations
 
-    export_param_correlations(os.path.join(out_dir, "param_correlations.xlsx"),
-                              res.pareto_X, slices, topo,
-                              heatmap_path=os.path.join(out_dir,
-                                                        "param_correlations.png"))
+    # the workbook is written before the heatmap is drawn
+    _figure(export_param_correlations,
+            os.path.join(out_dir, "param_correlations.xlsx"),
+            res.pareto_X, slices, topo,
+            heatmap_path=os.path.join(out_dir, "param_correlations.png"))
 
     # S-rate drive export + PDF report (reference export.py:1256-1570)
     from phoskintime_tpu.io.export import (
@@ -213,8 +226,8 @@ def main(cfg: PhosKinConfig, mesh=None, out_dir=None,
     tph = read_table(os.path.join(out_dir, "pareto_trajectories.xlsx"),
                      sheet_name="traj_phospho")
     if tp is not None and tr is not None and tph is not None:
-        plot_gof_solutions(tp, tr, tph, df_prot, df_rna, df_pho,
-                           os.path.join(out_dir, "gof_solutions"))
+        _figure(plot_gof_solutions, tp, tr, tph, df_prot, df_rna, df_pho,
+                os.path.join(out_dir, "gof_solutions"))
         # interactive Pareto explorer: objective scatter with clickable
         # members -> per-solution fit curves (single HTML, no server)
         from phoskintime_tpu.report.interactive import (
@@ -225,15 +238,17 @@ def main(cfg: PhosKinConfig, mesh=None, out_dir=None,
             res.pareto_F, res.best_idx, tp, tr, tph,
             df_prot, df_rna, df_pho)
     if topo.total_sites:
-        plot_s_rates_report(os.path.join(out_dir, "S_rates_picked.csv"),
-                            os.path.join(out_dir, "S_rates_report.pdf"))
+        _figure(plot_s_rates_report,
+                os.path.join(out_dir, "S_rates_picked.csv"),
+                os.path.join(out_dir, "S_rates_report.pdf"))
     # convergence history CSV/plot + population animation
-    process_convergence_history(res.history, out_dir)
+    _figure(process_convergence_history, res.history, out_dir)
     if getattr(res, "pop_history", None):
-        create_convergence_video(res.pop_history, res.pareto_F, out_dir)
+        _figure(create_convergence_video, res.pop_history, res.pareto_F,
+                out_dir)
     # per-gene observed-vs-predicted 3-panel time series
-    save_all_gene_timeseries(df_prot, dfp_fit, df_rna, dfr_fit, df_pho,
-                             dfph_fit, os.path.join(out_dir, "gene_timeseries"))
+    _figure(save_all_gene_timeseries, df_prot, dfp_fit, df_rna, dfr_fit,
+            df_pho, dfph_fit, os.path.join(out_dir, "gene_timeseries"))
 
     # ---- 9. sensitivity ----------------------------------------------------
     sens = None
@@ -290,17 +305,22 @@ def main(cfg: PhosKinConfig, mesh=None, out_dir=None,
 
     # ---- 11. figures + report ---------------------------------------------
     from phoskintime_tpu.report.html import create_report
-    from phoskintime_tpu.report.plotter import (
-        plot_convergence,
-        plot_parallel_coords_pareto,
-        plot_pareto_3d,
-    )
 
-    plot_pareto_3d(res.pareto_F, os.path.join(out_dir, "pareto_3d.png"),
-                   best_idx=res.best_idx)
-    plot_convergence(res.history, os.path.join(out_dir, "convergence.png"))
-    plot_parallel_coords_pareto(res.pareto_F,
-                                os.path.join(out_dir, "pareto_parallel.png"))
+    def pareto_figures():
+        from phoskintime_tpu.report.plotter import (
+            plot_convergence,
+            plot_parallel_coords_pareto,
+            plot_pareto_3d,
+        )
+
+        plot_pareto_3d(res.pareto_F, os.path.join(out_dir, "pareto_3d.png"),
+                       best_idx=res.best_idx)
+        plot_convergence(res.history,
+                         os.path.join(out_dir, "convergence.png"))
+        plot_parallel_coords_pareto(
+            res.pareto_F, os.path.join(out_dir, "pareto_parallel.png"))
+
+    _figure(pareto_figures)
 
     # reloadable dashboard bundle (reference runner.py:1061-1077)
     from phoskintime_tpu.report.dashboard import save_dashboard_bundle

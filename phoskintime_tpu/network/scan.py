@@ -11,7 +11,7 @@ as trial attributes, trials persist to storage for pause/resume
 optimization-history / parameter-importance / parallel-coordinate plots
 (scan.py:281-320).
 
-TPU-native redesign: the outer loop is the on-device-friendly TPE sampler
+Accelerator-native redesign: the outer loop is the on-device-friendly TPE sampler
 (:mod:`phoskintime_tpu.ops.tpe`), the inner loop the batched-evaluation
 UNSGA3 whose callback protocol supports early stop (truthy return), median
 pruning compares the trial's intermediate weighted score at each reporting

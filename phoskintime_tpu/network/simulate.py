@@ -6,7 +6,7 @@ RNA, per-site phospho with bitmask aggregation for model 2), normalized by
 baseline timepoints (t=0 for protein/phospho, t=4 for RNA), then slice to
 the modality grids.
 
-TPU-native: the solver is the vmap-safe RK45 with the kinase grid as
+Accelerator-native: the solver is the vmap-safe RK45 with the kinase grid as
 bucket boundaries; observables are three dense arrays (R, TOT, PHO) shared
 by all mechanisms, which also feed the gather-based loss directly.
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -69,7 +70,8 @@ def extract_observables(system, Y_flat, success=None) -> Observables:
         X = Y[:, :, 1:] * smask
         TOT = jnp.sum(X, axis=2)
         bits, = _bits(topo)
-        PHO = jnp.einsum("tnm,jm->tnj", X, bits)
+        PHO = jnp.einsum("tnm,jm->tnj", X, bits,
+                         precision=jax.lax.Precision.HIGHEST)
     else:
         msk = jnp.asarray(topo.site_mask(), Y.dtype)
         sites = Y[:, :, 2:] * msk

@@ -7,7 +7,7 @@ Spec: reference ``global_model/steadystate.py`` —
    sequential tridiagonal, combinatorial dense linear solve) used as
    structural validation oracles.
 
-TPU-native: the sequential case runs the batched Thomas solver over all
+Accelerator-native: the sequential case runs the batched Thomas solver over all
 proteins at once; the combinatorial case solves a batch of (Mmax, Mmax)
 systems with one ``jnp.linalg.solve``.
 """

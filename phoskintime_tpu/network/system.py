@@ -100,8 +100,8 @@ class GlobalSystem:
         variant is the EXACT model whose f32 tensors the production system
         rounds from. Used by the mixed-precision LM finish
         (:func:`phoskintime_tpu.network.polish.lm_refine_mixed`) — f64 on
-        TPU requires ``jax.config.update("jax_enable_x64", True)`` before
-        any tracing."""
+        the device requires ``jax.config.update("jax_enable_x64", True)``
+        before any tracing."""
         if dtype == self.dtype:
             return self
         return GlobalSystem(self.topo, self.kin_grid, self.Kmat,

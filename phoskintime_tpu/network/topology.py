@@ -3,7 +3,7 @@
 Spec: reference ``global_model/network.py:28-167`` (Index) and
 ``global_model/buildmat.py`` (W / TF matrix builders, ``site_key`` ordering).
 
-TPU-native layout: instead of a ragged flat state vector with per-protein
+Accelerator-native layout: instead of a ragged flat state vector with per-protein
 offsets, the state is a **padded (N, width) matrix** with boolean masks:
 
 * models 0/1/4: ``Y[i] = [R, P0, site_1..site_Smax]`` (width = 2 + Smax)

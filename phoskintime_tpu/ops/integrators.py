@@ -7,7 +7,7 @@ piecewise-constant kinase input K(t) (with k1 re-evaluated after a
 discontinuity), cubic Hermite dense output at ``t_eval``, dt within
 [dt_min, dt_max], bounded step count.
 
-TPU-native design differences:
+Accelerator-native design differences:
 
 * The whole integration is one ``lax.while_loop`` — each *batch lane*
   (e.g. each candidate parameter vector of an optimizer population) carries

@@ -3,14 +3,14 @@
 The per-gene kinetic models of the reference (``models/distmod.py``,
 ``models/succmod.py``, ``models/randmod.py``) are all *linear* ODEs
 ``dy/dt = M y + b`` with constant ``M``/``b``. The reference integrates them
-with LSODA thousands of times inside ``curve_fit``; on TPU we instead solve
+with LSODA thousands of times inside ``curve_fit``; here we instead solve
 them **exactly** with matrix exponentials:
 
     d/dt [y; 1] = [[M, b], [0, 0]] [y; 1]   =>   y(t) = (expm(A t) [y0; 1])[:d]
 
 State dimensions are tiny (<= 2 + 2^n), so a whole batch of
 (genes x starts x weights x lambdas x timepoints) exponentials is one big
-batched Pade-expm — dense small matmuls that XLA tiles onto the MXU.
+batched Pade-expm — dense small matmuls that XLA tiles onto the matrix units.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ levels, +/-50% bounds, conf_level=0.99, scaled=True; global:
 ``global_model/sensitivity.py``, 100 x 40, +/-5%). SALib is not available,
 so the method is implemented from Morris (1991) with Campolongo's mu*.
 
-TPU-native: the sampler emits ONE (r*(d+1), d) design matrix; all model
+Accelerator-native: the sampler emits ONE (r*(d+1), d) design matrix; all model
 evaluations happen as a single vmapped batch (the reference fans these out
 to a process pool, one ODE solve per process).
 """

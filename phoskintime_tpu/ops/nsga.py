@@ -857,8 +857,8 @@ def make_device_ga_step(pop_objective, xl, xu, pop_size: int, *,
     program: binary tournament, SBX, polynomial mutation, clone repair and
     the population objective run as ONE jitted (optionally mesh-sharded)
     call. The host keeps only survival (native non-dominated sort +
-    niching), killing the 38 ms/gen host-variation term measured at the
-    north-star shape (pop 384 x n_var 1103, RESULTS_r2.md).
+    niching), removing the host-variation term per generation at the
+    north-star shape (pop 384 x n_var 1103).
 
     Operator semantics mirror the host ops (:func:`sbx_crossover`,
     :func:`polynomial_mutation`, U-NSGA-III tournament) with a jax RNG
@@ -897,9 +897,11 @@ def make_device_ga_step(pop_objective, xl, xu, pop_size: int, *,
         row = NamedSharding(mesh, P("pop"))
         mat = NamedSharding(mesh, P("pop", None))
         rep = NamedSharding(mesh, P())
-        jitted = jax.jit(step,
-                         in_shardings=(mat, row, row, rep, rep, rep),
-                         out_shardings=(mat, mat))
+        from phoskintime_tpu.parallel.mesh import sharded_jit
+
+        jitted = sharded_jit(step, mesh,
+                             in_shardings=(mat, row, row, rep, rep, rep),
+                             out_shardings=(mat, mat))
     else:
         jitted = jax.jit(step)
 

@@ -2,12 +2,12 @@
 
 The host-side GA (:mod:`phoskintime_tpu.ops.nsga`) dispatches one device
 program per generation and keeps environmental selection on the host —
-cheap in absolute terms (~5-10 ms/gen with the native C++ sort) but it
-serializes a host round-trip per generation: at the north-star shape the
-device computes for ~24 ms and then idles through ~25 ms of dispatch
-latency plus the host bookkeeping (RESULTS_r2.md decomposition).
+cheap in absolute terms with the native C++ sort, but it serializes a
+host round-trip per generation: at the north-star shape the device
+idles through the dispatch latency plus the host bookkeeping of every
+generation.
 
-This module closes that gap the TPU-native way: the WHOLE generation —
+This module closes that gap the accelerator-native way: the WHOLE generation —
 tournament, SBX, polynomial mutation, clone repair, population
 evaluation, non-dominated ranking, NSGA-III normalization/association
 and niching survival — is one jitted program, and `lax.scan` runs
@@ -34,6 +34,7 @@ import numpy as np
 
 from phoskintime_tpu.ops.nsga import MOOResult, das_dennis, \
     fast_non_dominated_sort, lhs_sampling
+from phoskintime_tpu.parallel.mesh import sharded_jit
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +77,7 @@ def variation_kernel(X, rank, nd, key, xl_j, xu_j, *, pop_size: int,
     off = jnp.where(swap, c2, c1)
     off = jnp.where(do_cx[:, None], off, Xa)
     off = jnp.clip(off, xl_j, xu_j)
-    # polynomial mutation, dense (the VPU eats the full-matrix powers)
+    # polynomial mutation, dense (elementwise full-matrix powers are cheap)
     do_m = jax.random.uniform(kmd, (pop_size, n_var)) <= (1.0 / n_var)
     um = jax.random.uniform(kmu, (pop_size, n_var), f32)
     d1 = (off - xl_j) / span
@@ -113,7 +114,7 @@ def device_nd_ranks(F, mesh=None):
     With ``mesh`` (a Mesh with a "pop" axis) the (Q, Q) dominance matrix
     is COLUMN-sharded across devices — each device owns dom[:, local] and
     updates the ranks of its own column block; only the (Q,) rank vector
-    crosses the ICI per fixpoint iteration (an all-gather of 4Q bytes).
+    crosses the interconnect per fixpoint iteration (an all-gather of 4Q bytes).
     Semantics are exactly the replicated computation's; this is what lets
     the all-device GA rank the north-star 10k-member ensemble (a (20k)^2
     matrix) at 1/n_dev of the memory and bandwidth per device
@@ -397,9 +398,10 @@ def run_nsga2_device(pop_objective, xl, xu, *, pop_size: int = 100,
         mat = NamedSharding(mesh, P("pop", None))
         rep = NamedSharding(mesh, P())
         carry_shard = (mat, mat, row, row)
-        block_jit = jax.jit(block, in_shardings=(*carry_shard, rep),
-                            out_shardings=(*carry_shard, rep, rep))
-        init_jit = jax.jit(init, out_shardings=carry_shard)
+        block_jit = sharded_jit(block, mesh,
+                                in_shardings=(*carry_shard, rep),
+                                out_shardings=(*carry_shard, rep, rep))
+        init_jit = sharded_jit(init, mesh, out_shardings=carry_shard)
     else:
         block_jit = jax.jit(block)
         init_jit = jax.jit(init)
@@ -502,10 +504,10 @@ def make_device_ga_blocks(pop_objective, n_var: int, pop_size: int, *,
         mat = NamedSharding(mesh, P("pop", None))
         rep = NamedSharding(mesh, P())
         carry_shard = (mat, mat, row, row, row)
-        block_jit = jax.jit(block,
-                            in_shardings=(*carry_shard, rep, rep, rep),
-                            out_shardings=(*carry_shard, rep, rep))
-        init_jit = jax.jit(init, out_shardings=carry_shard)
+        block_jit = sharded_jit(block, mesh,
+                                in_shardings=(*carry_shard, rep, rep, rep),
+                                out_shardings=(*carry_shard, rep, rep))
+        init_jit = sharded_jit(init, mesh, out_shardings=carry_shard)
     else:
         block_jit = jax.jit(block)
         init_jit = jax.jit(init)

@@ -11,6 +11,7 @@ from phoskintime_tpu.parallel.mesh import (  # noqa: F401
     initialize_distributed,
     pad_to_devices,
     population_mesh,
+    sharded_jit,
 )
 from phoskintime_tpu.parallel.profile import (  # noqa: F401
     enable_compilation_cache,

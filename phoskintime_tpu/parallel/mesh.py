@@ -25,6 +25,29 @@ def population_mesh(n_devices: int | None = None, axis: str = "pop"):
     return Mesh(np.array(devs[:n]).reshape(n), (axis,))
 
 
+def sharded_jit(fn, mesh, **shardings):
+    """``jax.jit(fn, **shardings)`` whose calls trace and run under
+    ``jax.set_mesh(mesh)``.
+
+    The mesh in context is how a trace knows it is sharded:
+    :func:`phoskintime_tpu.network.expo._table_route` keeps such traces on
+    the XLA table build, because a ``pallas_call`` has no partitioning
+    rule. The context mesh is part of jit's cache key, so the same
+    objective traced without a mesh keeps its own program."""
+    import functools
+
+    import jax
+
+    jitted = jax.jit(fn, **shardings)
+
+    @functools.wraps(fn)
+    def call(*args):
+        with jax.set_mesh(mesh):
+            return jitted(*args)
+
+    return call
+
+
 def pad_to_devices(P: int, mesh) -> int:
     """Smallest population size >= P divisible by the mesh."""
     if mesh is None:

@@ -1,8 +1,9 @@
 """Profiling and compilation-cache utilities.
 
 Spec: reference auxiliary surface (SURVEY.md §5) — the reference has only
-Numba disk caches (``cache=True`` + a CLI ``clean``); the TPU equivalents
-are ``jax.profiler`` traces and the XLA persistent compilation cache.
+Numba disk caches (``cache=True`` + a CLI ``clean``); the accelerator
+equivalents are ``jax.profiler`` traces and the XLA persistent compilation
+cache.
 """
 
 from __future__ import annotations
@@ -10,6 +11,12 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from pathlib import Path
+
+# the checkout root (the directory holding the package); caches and
+# traces stay inside it, in directories .gitignore lists
+CHECKOUT = Path(__file__).resolve().parents[2]
+DEFAULT_CACHE_DIR = CHECKOUT / ".jax_cache"
 
 
 def jnp_zero():
@@ -18,32 +25,40 @@ def jnp_zero():
     return jnp.zeros(())
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> str:
-    """Persistent XLA compile cache (amortizes the ~20-40 s first compile).
+def compilation_cache_dir() -> str:
+    """Where the persistent compile cache lives: ``JAX_COMPILATION_CACHE_DIR``
+    when it is set, else :data:`DEFAULT_CACHE_DIR` — a fixed path, since
+    the path is part of the cache's key and a moving directory never
+    hits."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or str(DEFAULT_CACHE_DIR))
 
-    An explicit ``JAX_COMPILATION_CACHE_DIR`` env var wins over the
-    default location so callers (e.g. the test conftest) can isolate
-    runs: a process killed mid-write leaves a truncated cache entry, and
-    jax SEGFAULTS deserializing it — sharing one cache dir across
-    concurrently-killed processes is how that happens."""
+
+def enable_compilation_cache() -> str:
+    """Persistent XLA compile cache (amortizes the first compile of each
+    program shape). When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already
+    reads it and this sets no other directory. Returns the directory, or
+    "" when ``PHOSKINTIME_DISABLE_COMPILE_CACHE`` is set (the test suite:
+    serialized CPU executables have crashed it)."""
     import jax
 
     if os.environ.get("PHOSKINTIME_DISABLE_COMPILE_CACHE"):
-        return ""  # test suite: serialized CPU executables have crashed
-    cache_dir = (cache_dir or os.environ.get("JAX_COMPILATION_CACHE_DIR")
-                 or os.path.expanduser("~/.cache/phoskintime_tpu_xla"))
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+        return ""
+    cache_dir = compilation_cache_dir()
+    if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
+        os.makedirs(cache_dir, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", cache_dir)
     return cache_dir
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/phoskintime_trace"):
-    """``with trace(): ...`` captures a jax.profiler trace for xprof/TensorBoard."""
+def trace(log_dir: str | None = None):
+    """``with trace(): ...`` captures a jax.profiler trace (default: the
+    checkout's ``traces/`` directory)."""
     import jax
 
+    log_dir = log_dir or str(CHECKOUT / "traces")
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir

@@ -1,21 +1,31 @@
 """Reporting layer: matplotlib plot suite, HTML report, LaTeX export,
-reaction diagrams."""
+reaction diagrams.
 
-from phoskintime_tpu.report.diagram import illustrate  # noqa: F401
-from phoskintime_tpu.report.html import create_report  # noqa: F401
-from phoskintime_tpu.report.apps import (  # noqa: F401
-    render_kinopt_app,
-    render_tfopt_app,
-)
-from phoskintime_tpu.report.live import LiveMonitor  # noqa: F401
-from phoskintime_tpu.report.latexit import (  # noqa: F401
-    dataframe_to_latex,
-    figure_to_latex,
-    write_latex_report,
-)
-from phoskintime_tpu.report.plotter import (  # noqa: F401
-    Plotter,
-    plot_convergence,
-    plot_parallel_coords_pareto,
-    plot_pareto_3d,
-)
+Names are imported on first use, so the matplotlib-free parts (HTML
+explorers, the report index) load where matplotlib is not installed."""
+
+import importlib
+
+_EXPORTS = {
+    "illustrate": "diagram",
+    "create_report": "html",
+    "render_kinopt_app": "apps",
+    "render_tfopt_app": "apps",
+    "LiveMonitor": "live",
+    "dataframe_to_latex": "latexit",
+    "figure_to_latex": "latexit",
+    "write_latex_report": "latexit",
+    "Plotter": "plotter",
+    "plot_convergence": "plotter",
+    "plot_parallel_coords_pareto": "plotter",
+    "plot_pareto_3d": "plotter",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+    return getattr(module, name)

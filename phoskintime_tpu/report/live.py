@@ -12,7 +12,7 @@ Endpoints:
   /state.json  full history: generation, per-objective minima, evals
 
 The server runs on a daemon thread; the optimization loop only appends to
-a list under a lock, so the TPU-side evaluation cadence is untouched.
+a list under a lock, so the device-side evaluation cadence is untouched.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ with per-gene ``sum_r alpha = 1`` (alpha in [0,1]) and per-TF
 forced to 1). Losses 0..6: MSE, MAE, soft-L1, Cauchy, Arctan, Elastic Net
 (MSE + L1 + L2 on beta), Tikhonov (MSE + L2 on beta).
 
-TPU-native layout: regulators as a padded (n_genes, n_reg) index matrix
+Accelerator-native layout: regulators as a padded (n_genes, n_reg) index matrix
 (-1 invalid), beta as padded (n_TF, 1 + n_psite_max); prediction is two
 masked einsums; the prange-over-genes Numba loop becomes one matmul.
 """

@@ -250,18 +250,14 @@ class TestReturnObservables:
         sys_, pj = make_hetero_system()
         self._check(sys_, pj, width_bucketing=True)
 
-    def test_megakernel(self):
-        sys_, pj = make_system(0)
-        self._check(sys_, pj, use_scan_kernel=True)
-
 
 class TestLinearBlocksLanes:
     """The lane-native block assembly (models 0/1) must reproduce the
-    jvp/analytic builder exactly, including protein padding (Npad > N)."""
+    jvp/analytic builder exactly, for any subset of kinase buckets."""
 
     @pytest.mark.parametrize("model", [0, 1])
-    @pytest.mark.parametrize("npad_extra", [0, 3])
-    def test_matches_transpose_path(self, model, npad_extra):
+    @pytest.mark.parametrize("buckets", [(0, 3, 7), (5,)])
+    def test_matches_transpose_path(self, model, buckets):
         import jax
 
         from phoskintime_tpu.network.expo import (_block_linear_operators,
@@ -270,8 +266,7 @@ class TestLinearBlocksLanes:
         sys_, p = make_system(model=model)
         topo = sys_.topo
         N, w = topo.N, topo.width
-        Np = N + npad_extra
-        buckets = np.array([0, 3, 7], np.int32)
+        buckets = np.array(buckets, np.int32)
         P = 4
         rng = np.random.default_rng(5)
         params_b = {k: jnp.asarray(
@@ -281,11 +276,10 @@ class TestLinearBlocksLanes:
 
         L_pb = jax.vmap(lambda pp: _block_linear_operators(
             sys_, pp, buckets, dtype))(params_b)          # (P, Bu, N, w, w)
-        L_pb = jnp.pad(L_pb, ((0, 0), (0, 0), (0, Np - N), (0, 0), (0, 0)))
         ref = jnp.transpose(L_pb, (1, 3, 4, 0, 2)).reshape(
-            len(buckets), w, w, P * Np)
+            len(buckets), w, w, P * N)
 
-        out = _linear_blocks_lanes(sys_, params_b, buckets, dtype, Np)
+        out = _linear_blocks_lanes(sys_, params_b, buckets, dtype)
         assert out.shape == ref.shape
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                    rtol=2e-6, atol=1e-7)

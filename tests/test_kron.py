@@ -211,7 +211,7 @@ class TestKronSimulate:
 
     def test_unstable_beyond_rk2_bound(self):
         """Production-plan step sizes (h·D > 2) diverge — the measured
-        fact that demotes this path to opt-in (RESULTS_r5.md)."""
+        fact that demotes this path to opt-in."""
         sys_, pj = _model2_system()
         assert float(np.max(np.asarray(pj["D_i"]))) * 4.0 > 2.0
         ys, ok = _batched(sys_, pj, substep=4.0, use_kron=True)

@@ -500,7 +500,7 @@ class TestShardedExpoObjective:
 class TestAutoPopChunk:
     def test_lane_budget_rule(self):
         """auto pop_chunk = pow2 chunk holding ~80k ODE lanes, clamped
-        to [256, 8192] (measured v5e peaks: N=40 -> 2048, N=150 -> 512)."""
+        to [256, 8192] (N=40 -> 2048, N=150 -> 512; untuned for the H100)."""
         from phoskintime_tpu.network.objective import _auto_pop_chunk
 
         assert _auto_pop_chunk(40) == 2048

@@ -4,7 +4,7 @@ hypervolume truncation.
 
 The polish stage has no reference counterpart (the reference's only
 post-search sharpening is bound-zoom re-sampling,
-``global_model/refine.py:32-357``); these tests pin the TPU-native
+``global_model/refine.py:32-357``); these tests pin the accelerator-native
 capability it unlocks: exact reverse-mode descent through the full
 softplus-unpack -> ETD2RK -> loss pipeline.
 """
@@ -42,7 +42,7 @@ def _setup(seed=0):
 class TestDifferentiablePath:
     def test_matches_production_values(self):
         """differentiable=True must compute the SAME objective values as
-        the production path (statically-unrolled ladder == traced-trip
+        the production path (static-length masked ladder == traced-trip
         ladder when the unroll bound covers the need)."""
         sys, topo, slices, ld, defaults, grid, theta0, xl, xu = _setup()
         rng = np.random.default_rng(1)
@@ -352,7 +352,7 @@ class TestLMRefine:
 class TestLMRefineMixed:
     """Mixed-precision finish: f32-system LM to its rounding floor, then
     a float64-system finish from the converged point (the north-star
-    1e-6 parameter-match route on the TPU path)."""
+    1e-6 parameter-match route on the device f32 path)."""
 
     def test_f64_finish_descends_past_f32_floor(self):
         from phoskintime_tpu.network.objective import make_residual_fn
